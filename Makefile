@@ -8,13 +8,14 @@
 #                  XLA-CPU executables and was observed to segfault in
 #                  late compiles, so the tiered/xdist form is canonical)
 #   make test-slow the slow tier (long SfM/SLAM sequences), xdist
-#   make test-tpu  the real-TPU compiled-kernel tests (needs one free chip)
+#   make smoke     chip_smoke.py: the main paths on one GPU vs the CPU
+#                  reference (needs a GPU; one process holds the card)
 #   make bench    the benchmark harness (one JSON line)
 #   make dryrun   the 8-device multi-chip sharding dry run (CPU-faked)
 
 PYTHON ?= python
 
-.PHONY: native test test-slow test-tpu bench dryrun clean
+.PHONY: native test test-slow smoke bench dryrun clean
 
 native:
 	$(MAKE) -C native
@@ -25,8 +26,8 @@ test: native
 test-slow: native
 	$(PYTHON) -m pytest tests/ -q -m slow -n 2
 
-test-tpu:
-	PMT_TPU_TESTS=1 $(PYTHON) -m pytest tests/test_tpu_compiled.py -q
+smoke:
+	$(PYTHON) chip_smoke.py
 
 bench:
 	$(PYTHON) bench.py

@@ -1,16 +1,15 @@
 #!/usr/bin/env python
-"""Detector per-stage cost decomposition on-chip (993×660, 512 kp).
+"""Detector per-stage cost decomposition on the device (993×660, 512 kp).
 
 Cumulative slices of ops.detect.detect_keypoints (Hessian kind, SURF
 parity config), each jitted as an 8-iteration dependent chain and
 slope-timed against a 1-iteration chain — same methodology as
-bench.py's sections, so numbers compare directly with the 9.1 ms/image
-detection figure and the r5 probe notes in BASELINE.md.
+bench.py's sections.
 
 Slices:
   resp       - 8-sigma Hessian response pyramid (the shift-FMA convs)
   nms        - + spatial/scale NMS + border/threshold mask
-  topk       - + 2x2-block reduce + bitonic top-k (index decode)
+  topk       - + 2x2-block reduce + top-k (index decode)
   subpix     - + sub-pixel offset maps and their gathers
   full       - + orientation (= production detect_keypoints)
   describe   - surf_describe on the full detection (per-image cost)
@@ -32,9 +31,9 @@ def main():
     import jax.numpy as jnp
     from jax import lax
 
-    from points_matching_tpu.core.config import surf_parity_config
-    from points_matching_tpu.ops import detect as D
-    from points_matching_tpu.ops.descriptors import surf_describe
+    from points_matching.core.config import surf_parity_config
+    from points_matching.ops import detect as D
+    from points_matching.ops.descriptors import surf_describe
 
     cfg = surf_parity_config().detector
     H, W = 660, 993
@@ -108,7 +107,7 @@ def main():
     out = sys.argv[1] if len(sys.argv) > 1 else None
     if out:
         with open(out, "w") as f:
-            f.write("Detector stage decomposition (993x660, 512 kp, on-chip)\n")
+            f.write("Detector stage decomposition (993x660, 512 kp)\n")
             f.write("\n".join(lines) + "\n")
 
 

@@ -26,11 +26,11 @@ def run_variant(name):
     import jax.numpy as jnp
 
     import bench
-    from points_matching_tpu.core.config import (
+    from points_matching.core.config import (
         MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig,
     )
-    from points_matching_tpu.core.types import CameraIntrinsics
-    from points_matching_tpu.pipelines.sfm import (
+    from points_matching.core.types import CameraIntrinsics
+    from points_matching.pipelines.sfm import (
         bootstrap_two_view, init_sfm_state, register_frames_chunk,
     )
 

@@ -5,8 +5,8 @@ north-star: ≥80% frames/s scaling efficiency at 4 hosts).
 Strong-scales the two collective-bound pipelines over 1..N devices:
 
   * **all-pairs matching** (BASELINE config 1) — images sharded on the
-    ``data`` axis, ring exchange (`parallel/all_pairs.py`) over the ICI
-    links on real hardware;
+    ``data`` axis, ring exchange (`parallel/all_pairs.py`) over NVLink on
+    a multi-GPU host;
   * **distributed bundle adjustment** — landmarks sharded on the ``model``
     axis, Schur reduction via compiler-placed psum
     (`parallel/sharded_ba.py`).
@@ -14,7 +14,7 @@ Strong-scales the two collective-bound pipelines over 1..N devices:
 Prints one JSON line per (workload, n_devices) with throughput and
 efficiency vs the 1-device run: ``eff(n) = t(1) / (n · t(n))``.
 
-Run on a real TPU slice for meaningful numbers.  On a faked CPU mesh
+Run on a multi-GPU host for meaningful numbers.  On a faked CPU mesh
 (``XLA_FLAGS=--xla_force_host_platform_device_count=8``) the devices
 share the host's cores, so wall-clock "efficiency" is bounded by
 physical core count — that mode validates that the sharded paths run and
@@ -33,7 +33,7 @@ def parse_args():
     p = argparse.ArgumentParser()
     p.add_argument("--devices", default=None,
                    help="comma list of mesh sizes (default: 1,2,4,.. up to available)")
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     p.add_argument("--fake-devices", type=int, default=0,
                    help="force a faked N-device CPU mesh (sets XLA_FLAGS; CI mode)")
     p.add_argument("--images", type=int, default=16)
@@ -82,8 +82,8 @@ def bench_all_pairs(n_dev, args):
     import jax
     import jax.numpy as jnp
 
-    from points_matching_tpu.parallel.all_pairs import all_pairs_scores
-    from points_matching_tpu.parallel.mesh import DATA_AXIS, make_mesh
+    from points_matching.parallel.all_pairs import all_pairs_scores
+    from points_matching.parallel.mesh import DATA_AXIS, make_mesh
 
     N, K, D = args.images, args.keypoints, args.dim
     key = jax.random.PRNGKey(0)
@@ -114,12 +114,12 @@ def bench_distributed_ba(n_dev, args):
     FLOPs, so the layout's own Amdahl cap is ~0.94 @ 2 devices."""
     import jax
 
-    from points_matching_tpu.ba.sparse import make_sparse_ba_state
-    from points_matching_tpu.core.config import BAConfig
-    from points_matching_tpu.core.types import CameraIntrinsics
-    from points_matching_tpu.data.synthetic import make_sparse_ba_problem
-    from points_matching_tpu.parallel.mesh import MODEL_AXIS, make_mesh
-    from points_matching_tpu.parallel.sharded_ba import (
+    from points_matching.ba.sparse import make_sparse_ba_state
+    from points_matching.core.config import BAConfig
+    from points_matching.core.types import CameraIntrinsics
+    from points_matching.data.synthetic import make_sparse_ba_problem
+    from points_matching.parallel.mesh import MODEL_AXIS, make_mesh
+    from points_matching.parallel.sharded_ba import (
         distributed_bundle_adjust_sparse,
     )
 
@@ -166,8 +166,9 @@ def main():
 
     import jax
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from points_matching.utils.platform import use_platform
+
+    use_platform(args.platform)
 
     avail = len(jax.devices())
     if args.devices:

@@ -4,7 +4,7 @@ register→triangulate→local-BA loop on a synthetic trajectory (or a directory
 of images once frame IO lands) and reports ATE vs ground truth.
 
 Usage:
-  python examples/sfm_demo.py [--frames N] [--landmarks L] [--platform cpu|tpu]
+  python examples/sfm_demo.py [--frames N] [--landmarks L] [--platform cpu|gpu]
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -18,64 +18,34 @@ def main() -> int:
     p.add_argument("--landmarks", type=int, default=400)
     p.add_argument("--features", type=int, default=256)
     p.add_argument("--noise", type=float, default=0.3, help="pixel noise sigma")
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--loop-closure", action="store_true",
                    help="out-and-back trajectory + detect/verify/close loops")
     args = p.parse_args()
 
-    import jax
+    from points_matching.utils.platform import use_platform
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    use_platform(args.platform)
 
     import numpy as np
     import jax.numpy as jnp
 
-    from points_matching_tpu.core.config import (
+    from points_matching.core.config import (
         MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig,
     )
-    from points_matching_tpu.core.types import CameraIntrinsics
-    from points_matching_tpu.geometry.se3 import so3_exp
-    from points_matching_tpu.pipelines.sfm import run_incremental_sfm
-    from points_matching_tpu.utils.evaluation import absolute_trajectory_error
+    from points_matching.core.types import CameraIntrinsics
+    from points_matching.data.synthetic import make_tracked_sequence
+    from points_matching.pipelines.sfm import run_incremental_sfm
+    from points_matching.utils.evaluation import absolute_trajectory_error
 
-    rng = np.random.RandomState(args.seed)
-    w, h, fx = 640, 480, 500.0
-    K = CameraIntrinsics(fx=jnp.float32(fx), fy=jnp.float32(fx),
-                         cx=jnp.float32(w / 2), cy=jnp.float32(h / 2))
-    X = rng.uniform([-4, -3, 6], [4, 3, 14], (args.landmarks, 3)).astype(np.float32)
-    desc_gt = rng.randn(args.landmarks, 32).astype(np.float32)
-    desc_gt /= np.linalg.norm(desc_gt, axis=-1, keepdims=True)
-
-    if args.loop_closure:
-        half = args.frames // 2
-        offs = list(range(half)) + list(range(half - 2, -2, -1))
-        offs = (offs + [0] * args.frames)[: args.frames]
-    else:
-        offs = list(range(args.frames))
-
-    frames, gt_centers = [], []
-    for i, o in enumerate(offs):
-        R = np.asarray(so3_exp(jnp.asarray([0.0, 0.015 * o, 0.0])), np.float32)
-        t = np.asarray([-0.25 * o, 0.0, 0.0], np.float32)
-        gt_centers.append(-(R.T @ t))
-        Xc = X @ R.T + t
-        uv = Xc[:, :2] / Xc[:, 2:3] * fx + np.asarray([w / 2, h / 2])
-        vis = (Xc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & \
-              (uv[:, 1] >= 0) & (uv[:, 1] < h)
-        idx = np.nonzero(vis)[0]
-        rng.shuffle(idx)
-        idx = idx[: args.features]
-        k = len(idx)
-        xy = np.zeros((args.features, 2), np.float32)
-        dd = np.zeros((args.features, 32), np.float32)
-        mm = np.zeros((args.features,), bool)
-        xy[:k] = uv[idx] + args.noise * rng.randn(k, 2)
-        d = desc_gt[idx] + 0.05 * rng.randn(k, 32).astype(np.float32)
-        dd[:k] = d / np.linalg.norm(d, axis=-1, keepdims=True)
-        mm[:k] = True
-        frames.append((jnp.asarray(xy), jnp.asarray(dd), jnp.asarray(mm)))
+    frames_np, gt, (fx, fy, cx, cy) = make_tracked_sequence(
+        args.frames, args.landmarks, args.features, args.noise, args.seed,
+        loop=args.loop_closure)
+    gt_centers = list(gt)
+    K = CameraIntrinsics(fx=jnp.float32(fx), fy=jnp.float32(fy),
+                         cx=jnp.float32(cx), cy=jnp.float32(cy))
+    frames = [tuple(jnp.asarray(a) for a in f) for f in frames_np]
 
     cfg = SfMConfig(
         two_view=TwoViewConfig(
@@ -104,8 +74,8 @@ def main() -> int:
           f"(scale {float(ate.scale):.3f})")
 
     if args.loop_closure:
-        from points_matching_tpu.pipelines.loop_closure import close_loops
-        from points_matching_tpu.pipelines.sfm import (
+        from points_matching.pipelines.loop_closure import close_loops
+        from points_matching.pipelines.sfm import (
             camera_centers,
             local_bundle_adjust,
         )

@@ -23,7 +23,7 @@ def main() -> int:
     p.add_argument("--seq", default="00", help="KITTI sequence id")
     p.add_argument("--frames", type=int, default=100)
     p.add_argument("--features", type=int, default=512)
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     p.add_argument("--loop-closure", action="store_true")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save the final map state here (Orbax)")
@@ -35,26 +35,26 @@ def main() -> int:
     p.add_argument("--overlap", type=int, default=4)
     args = p.parse_args()
 
-    import jax
+    from points_matching.utils.platform import use_platform
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    use_platform(args.platform)
+    import jax
 
     import dataclasses
 
     import jax.numpy as jnp
     import numpy as np
 
-    from points_matching_tpu.core.config import (
+    from points_matching.core.config import (
         DetectorConfig, MatcherConfig, RansacConfig, SfMConfig, TwoViewConfig,
     )
-    from points_matching_tpu.data.datasets import load_kitti_sequence, load_tum_sequence
-    from points_matching_tpu.data.images import load_batch
-    from points_matching_tpu.ops.descriptors import extract_descriptors
-    from points_matching_tpu.ops.detect import detect_keypoints
-    from points_matching_tpu.pipelines.sfm import run_incremental_sfm
-    from points_matching_tpu.utils.evaluation import absolute_trajectory_error
-    from points_matching_tpu.utils.logging import get_logger
+    from points_matching.data.datasets import load_kitti_sequence, load_tum_sequence
+    from points_matching.data.images import load_batch
+    from points_matching.ops.descriptors import extract_descriptors
+    from points_matching.ops.detect import detect_keypoints
+    from points_matching.pipelines.sfm import run_incremental_sfm
+    from points_matching.utils.evaluation import absolute_trajectory_error
+    from points_matching.utils.logging import get_logger
 
     log = get_logger("slam")
 
@@ -110,8 +110,8 @@ def main() -> int:
 
     traj = np.asarray(res.trajectory)[: len(seq)]
     if args.loop_closure:
-        from points_matching_tpu.pipelines.loop_closure import close_loops
-        from points_matching_tpu.pipelines.sfm import camera_centers
+        from points_matching.pipelines.loop_closure import close_loops
+        from points_matching.pipelines.sfm import camera_centers
 
         corrected, cands = close_loops(
             res.state.poses, int(res.state.num_cams), frames, seq.K, cfg
@@ -137,7 +137,7 @@ def main() -> int:
         log.info("no ground truth — skipping ATE")
 
     if args.checkpoint_dir:
-        from points_matching_tpu.utils.checkpoint import CheckpointManager
+        from points_matching.utils.checkpoint import CheckpointManager
 
         with CheckpointManager(args.checkpoint_dir) as mgr:
             mgr.save(len(seq), res.state)
@@ -156,11 +156,11 @@ def _run_distributed(args, frames, seq, cfg, log):
     import jax.numpy as jnp
     import numpy as np
 
-    from points_matching_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
-    from points_matching_tpu.pipelines.distributed_slam import (
+    from points_matching.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    from points_matching.pipelines.distributed_slam import (
         run_distributed_slam, segment_frames,
     )
-    from points_matching_tpu.utils.evaluation import absolute_trajectory_error
+    from points_matching.utils.evaluation import absolute_trajectory_error
 
     kps = jnp.stack([f[0] for f in frames])
     dsc = jnp.stack([f[1] for f in frames])

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """Two-view demo CLI — the reference console app, reimagined
-(``Points Matching/main.cpp:9-146``): loads two images, runs the TPU-native
+(``Points Matching/main.cpp:9-146``): loads two images, runs the
 two-view pipeline, prints the reference's statistics and writes the three
 "windows" (keypoints / matches / epilines) as PNGs.
 
 Usage:
   python examples/two_view_demo.py IMG1 IMG2 [--out OUT_DIR]
-      [--config surf_parity|orb|ransac] [--platform cpu|tpu] [--seed N]
+      [--config surf_parity|orb|ransac] [--platform cpu|gpu] [--seed N]
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -26,40 +26,31 @@ def main() -> int:
         help="surf_parity = reference semantics (midpoint filter, no RANSAC); "
         "ransac = SURF-class + ratio test + batched RANSAC; orb = BASELINE config 0",
     )
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-keypoints", type=int, default=512)
     args = p.parse_args()
 
-    import jax
+    from points_matching.utils.platform import use_platform
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    use_platform(args.platform)
 
     import dataclasses
 
-    from points_matching_tpu.core.config import (
-        MatcherConfig,
-        TwoViewConfig,
+    from points_matching.core.config import (
         orb_default_config,
+        ratio_ransac_config,
         surf_parity_config,
     )
-    from points_matching_tpu.pipelines.two_view import run_two_view_demo
+    from points_matching.pipelines.two_view import run_two_view_demo
 
-    if args.config == "surf_parity":
-        cfg = surf_parity_config()
-    elif args.config == "orb":
-        cfg = orb_default_config()
+    if args.config == "ransac":
+        cfg = ratio_ransac_config(args.max_keypoints)
     else:
-        base = surf_parity_config()
-        cfg = dataclasses.replace(
-            base,
-            matcher=MatcherConfig(metric="l2", filter="ratio", ratio=0.85),
-            use_ransac=True,
-        )
-    cfg = dataclasses.replace(
-        cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=args.max_keypoints)
-    )
+        cfg = (surf_parity_config() if args.config == "surf_parity"
+               else orb_default_config())
+        cfg = dataclasses.replace(cfg, detector=dataclasses.replace(
+            cfg.detector, max_keypoints=args.max_keypoints))
 
     res = run_two_view_demo(args.img1, args.img2, cfg, out_dir=args.out, seed=args.seed)
     import numpy as np

@@ -1,7 +1,7 @@
-// pmt_native — host-side native layer for points_matching_tpu.
+// pmt_native — host-side native layer for points_matching.
 //
 // The reference's native layer is OpenCV's highgui C++ (image decode behind
-// cv::imread, "Points Matching/main.cpp:14-15"); TPUs have no imread, so the
+// cv::imread, "Points Matching/main.cpp:14-15"); accelerators have no imread, so the
 // framework's data path is: native C++ decode on the host (this file) →
 // pinned numpy buffers → jax.device_put (SURVEY.md §1.2 "Native layer").
 //

@@ -5,21 +5,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.ba.lm import (
+from points_matching.ba.lm import (
     ba_cost,
     bundle_adjust,
     grid_from_obs,
     make_ba_state,
 )
-from points_matching_tpu.ba.pose_graph import (
+from points_matching.ba.pose_graph import (
     make_odometry_chain,
     optimize_pose_graph,
     pose_graph_cost,
 )
-from points_matching_tpu.core.config import BAConfig
-from points_matching_tpu.core.types import CameraIntrinsics, Pose
-from points_matching_tpu.data.synthetic import make_ba_problem
-from points_matching_tpu.geometry.se3 import se3_exp, se3_log, so3_exp, so3_log
+from points_matching.core.config import BAConfig
+from points_matching.core.types import CameraIntrinsics, Pose
+from points_matching.data.synthetic import make_ba_problem
+from points_matching.geometry.se3 import se3_exp, se3_log, so3_exp, so3_log
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +114,11 @@ def test_ba_with_noise_monotone():
 
 
 def test_ba_pcg_single_solve_matches_cholesky():
-    from points_matching_tpu.ba.residuals import (
+    from points_matching.ba.residuals import (
         huber_weights,
         residuals_and_jacobians,
     )
-    from points_matching_tpu.ba.schur import (
+    from points_matching.ba.schur import (
         build_normal_equations,
         solve_schur,
         solve_schur_pcg,
@@ -244,7 +244,7 @@ def test_pose_graph_pcg_scales_to_long_trajectory():
     would be 12288² f32 = 600 MB per step; the PCG path never builds it."""
     n = 2048
     ang = jnp.linspace(0.0, 4.0 * jnp.pi, n)
-    from points_matching_tpu.geometry.se3 import so3_exp
+    from points_matching.geometry.se3 import so3_exp
     wvecs = jnp.stack([jnp.zeros_like(ang), ang, jnp.zeros_like(ang)], -1)
     t = jnp.stack([50.0 * jnp.cos(ang), 0.02 * jnp.arange(n),
                    50.0 * jnp.sin(ang)], -1)

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from points_matching_tpu.data import native
-from points_matching_tpu.data.images import load_batch, load_image, rgb_to_gray
+from points_matching.data import native
+from points_matching.data.images import load_batch, load_image, rgb_to_gray
 
 REF_JPG = "/root/reference/Points Matching/img01.JPG"
 

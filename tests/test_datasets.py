@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from points_matching_tpu.data.datasets import (
+from points_matching.data.datasets import (
     _quat_to_rot,
     _rot_to_quat,
     load_kitti_sequence,

@@ -20,14 +20,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import (
+from points_matching.core.config import (
     DetectorConfig,
     MatcherConfig,
     TwoViewConfig,
     surf_parity_config,
 )
-from points_matching_tpu.data.images import load_image
-from points_matching_tpu.ops.detect import detect_keypoints
+from points_matching.data.images import load_image
+from points_matching.ops.detect import detect_keypoints
 
 REF_DIR = "/root/reference/Points Matching"
 IMG1 = os.path.join(REF_DIR, "img01.JPG")
@@ -103,7 +103,7 @@ def _cv2_quality(cv2, det, norm, g1, g2, ratio=0.85):
 @needs_images
 def test_match_quality_corridor_vs_cv2():
     cv2 = pytest.importorskip("cv2")
-    from points_matching_tpu.pipelines.two_view import run_two_view_demo
+    from points_matching.pipelines.two_view import run_two_view_demo
 
     g1 = cv2.imread(IMG1, cv2.IMREAD_GRAYSCALE)
     g2 = cv2.imread(IMG2, cv2.IMREAD_GRAYSCALE)

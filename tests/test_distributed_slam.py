@@ -8,22 +8,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import (
+from points_matching.core.config import (
     BAConfig,
     MatcherConfig,
     RansacConfig,
     SfMConfig,
     TwoViewConfig,
 )
-from points_matching_tpu.core.types import CameraIntrinsics
-from points_matching_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
-from points_matching_tpu.pipelines.distributed_slam import (
+from points_matching.core.types import CameraIntrinsics
+from points_matching.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from points_matching.pipelines.distributed_slam import (
     run_distributed_slam,
     segment_frames,
     sim3_from_shared_frames,
     _apply_sim3_to_poses,
 )
-from points_matching_tpu.utils.evaluation import absolute_trajectory_error
+from points_matching.utils.evaluation import absolute_trajectory_error
 
 
 def _random_rotations(rng, n):
@@ -72,7 +72,7 @@ def _make_stacked_sequence(num_frames=16, num_landmarks=400, n_feat=256,
     ``corridor=True`` spreads the landmark cloud along the whole trajectory
     (KITTI-like forward corridor) so long sequences keep fresh structure in
     view — the fixed cloud leaves the frustum after ~30 frames."""
-    from points_matching_tpu.geometry.se3 import so3_exp
+    from points_matching.geometry.se3 import so3_exp
 
     rng = np.random.RandomState(seed)
     w, h = 640, 480

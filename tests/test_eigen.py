@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.geometry.eigen import (
+from points_matching.geometry.eigen import (
     nearest_rotation_so3,
     project_rank2,
     smallest_eigvec_psd,

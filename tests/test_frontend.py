@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import DescriptorConfig, DetectorConfig
-from points_matching_tpu.core.types import Keypoints
-from points_matching_tpu.ops.descriptors import orb_describe, surf_describe
-from points_matching_tpu.ops.detect import (
+from points_matching.core.config import DescriptorConfig, DetectorConfig
+from points_matching.core.types import Keypoints
+from points_matching.ops.descriptors import orb_describe, surf_describe
+from points_matching.ops.detect import (
     detect_keypoints,
     fast_response,
     gaussian_blur,
@@ -172,7 +172,7 @@ class TestDescriptors:
         assert d.data.dtype == jnp.uint32
         assert d.binary
         # different locations → nonzero hamming distance
-        from points_matching_tpu.ops.matching import hamming_distance_matrix
+        from points_matching.ops.matching import hamming_distance_matrix
 
         hd = hamming_distance_matrix(d.data, d.data)
         assert int(hd[0, 0]) == 0
@@ -180,8 +180,8 @@ class TestDescriptors:
 
     def test_end_to_end_detect_describe_match(self):
         """Same image shifted: detect+describe+match must recover the shift."""
-        from points_matching_tpu.core.config import MatcherConfig
-        from points_matching_tpu.ops.matching import match_descriptors
+        from points_matching.core.config import MatcherConfig
+        from points_matching.ops.matching import match_descriptors
 
         rng = np.random.RandomState(1)
         img = gaussian_blur(jnp.asarray(rng.rand(160, 160).astype(np.float32)) * 255.0, 2.0)
@@ -206,7 +206,7 @@ def test_bilinear_sample_left_top_border_fringe():
     interpolate toward pixel column/row 0, not column/row 1 — the packed
     corner path originally clipped the base index and read the wrong
     neighborhood on the one-pixel top/left fringe."""
-    from points_matching_tpu.ops.sampling import bilinear_sample
+    from points_matching.ops.sampling import bilinear_sample
 
     img = jnp.asarray([[10.0, 100.0, 200.0],
                        [30.0, 40.0, 50.0],

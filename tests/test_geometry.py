@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.types import Pose
-from points_matching_tpu.data.synthetic import make_two_view_scene
-from points_matching_tpu.geometry import (
+from points_matching.core.types import Pose
+from points_matching.data.synthetic import make_two_view_scene
+from points_matching.geometry import (
     compute_epilines,
     decompose_essential,
     eight_point,
@@ -27,7 +27,7 @@ from points_matching_tpu.geometry import (
     to_homogeneous,
     triangulate_dlt,
 )
-from points_matching_tpu.geometry.fundamental import _sign_normalize
+from points_matching.geometry.fundamental import _sign_normalize
 
 
 def _f_dist(Fa, Fb):

@@ -9,20 +9,20 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from points_matching_tpu.core.config import MatcherConfig
-from points_matching_tpu.core.types import CameraIntrinsics, Descriptors, Pose
-from points_matching_tpu.data.synthetic import make_two_view_scene
-from points_matching_tpu.geometry import (
+from points_matching.core.config import MatcherConfig
+from points_matching.core.types import CameraIntrinsics, Descriptors, Pose
+from points_matching.data.synthetic import make_two_view_scene
+from points_matching.geometry import (
     compute_epilines,
     eight_point,
     epipolar_residuals,
     ransac_fundamental,
     triangulate_dlt,
 )
-from points_matching_tpu.geometry.fundamental import _sign_normalize
-from points_matching_tpu.geometry.pnp import ransac_pnp
-from points_matching_tpu.geometry.pose import recover_pose
-from points_matching_tpu.ops.matching import match_descriptors
+from points_matching.geometry.fundamental import _sign_normalize
+from points_matching.geometry.pnp import ransac_pnp
+from points_matching.geometry.pose import recover_pose
+from points_matching.ops.matching import match_descriptors
 
 
 def _scene(noise=0.3, n=96, outliers=0.0, seed=0):
@@ -106,7 +106,7 @@ def test_eight_point_matches_cv2_fm8point():
 
 
 def test_seven_point_contains_cv2_solution():
-    from points_matching_tpu.geometry import seven_point
+    from points_matching.geometry import seven_point
 
     sc = _scene(noise=0.0, n=7)
     F_cv, _ = cv2.findFundamentalMat(
@@ -125,7 +125,7 @@ def test_seven_point_contains_cv2_solution():
 def test_find_fundamental_exactly7_dispatch_matches_cv2():
     """The exact call the reference makes — findFundamentalMat(CV_FM_7POINT)
     with exactly 7 points (main.cpp:95-98) — through our dispatch."""
-    from points_matching_tpu.geometry import find_fundamental
+    from points_matching.geometry import find_fundamental
 
     sc = _scene(noise=0.0, n=16, seed=2)
     mask = jnp.arange(16) < 7  # exactly 7 valid → 7-point branch
@@ -141,7 +141,7 @@ def test_find_fundamental_exactly7_dispatch_matches_cv2():
         assert min(errs) < 5e-3, f"root {k}: {errs}"
 
     # >7 valid → 8-point least-squares branch (OpenCV 2.4's fallback)
-    from points_matching_tpu.geometry import eight_point as _8pt
+    from points_matching.geometry import eight_point as _8pt
 
     full_mask = jnp.ones((16,), bool)
     Fs8, valid8 = find_fundamental(sc.p1, sc.p2, full_mask)
@@ -154,7 +154,7 @@ def test_find_fundamental_exactly7_dispatch_matches_cv2():
 def test_ransac_7pt_inliers_match_cv2():
     """7-point minimal sampling through the full RANSAC path vs cv2's
     FM_RANSAC consensus (cv2's own RANSAC also samples 7-point sets)."""
-    from points_matching_tpu.core.config import RansacConfig
+    from points_matching.core.config import RansacConfig
 
     sc = _scene(noise=0.5, n=256, outliers=0.3, seed=4)
     est = ransac_fundamental(

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import (
+from points_matching.core.config import (
     DescriptorConfig,
     DetectorConfig,
     MatcherConfig,
@@ -22,12 +22,12 @@ from points_matching_tpu.core.config import (
     SfMConfig,
     TwoViewConfig,
 )
-from points_matching_tpu.core.types import CameraIntrinsics
-from points_matching_tpu.data.render import render_sequence
-from points_matching_tpu.ops.descriptors import extract_descriptors
-from points_matching_tpu.ops.detect import detect_keypoints
-from points_matching_tpu.pipelines.sfm import camera_centers, run_incremental_sfm
-from points_matching_tpu.utils.evaluation import absolute_trajectory_error
+from points_matching.core.types import CameraIntrinsics
+from points_matching.data.render import render_sequence
+from points_matching.ops.descriptors import extract_descriptors
+from points_matching.ops.detect import detect_keypoints
+from points_matching.pipelines.sfm import camera_centers, run_incremental_sfm
+from points_matching.utils.evaluation import absolute_trajectory_error
 
 NUM_FRAMES = 16
 TRAJ_EXTENT = 2.0  # renderer loop trajectory spans ~2 world units
@@ -71,8 +71,8 @@ def test_frontend_quality_on_rendered_frames(rendered_pipeline):
         assert int(jnp.sum(mask)) >= 128
     # frame 0 ↔ frame 1 matches must be displacement-coherent (camera
     # translates ~-4 px/frame at this depth)
-    from points_matching_tpu.core.types import Descriptors
-    from points_matching_tpu.ops.matching import match_descriptors
+    from points_matching.core.types import Descriptors
+    from points_matching.ops.matching import match_descriptors
 
     (xy0, d0, m0), (xy1, d1, m1) = frames[0], frames[1]
     m = match_descriptors(
@@ -101,7 +101,7 @@ def test_incremental_sfm_from_images(rendered_pipeline):
 
 
 def test_loop_closure_fires_from_images(rendered_pipeline):
-    from points_matching_tpu.pipelines.loop_closure import close_loops
+    from points_matching.pipelines.loop_closure import close_loops
 
     _, frames, K, cfg, gt_pos = rendered_pipeline
     res = run_incremental_sfm(frames, K, cfg, seed=0)
@@ -118,7 +118,7 @@ def test_loop_closure_fires_from_images(rendered_pipeline):
 
 
 def test_distributed_slam_from_images(rendered_pipeline):
-    from points_matching_tpu.pipelines.distributed_slam import (
+    from points_matching.pipelines.distributed_slam import (
         run_distributed_slam,
     )
 

@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from points_matching_tpu.core.types import CameraIntrinsics, Pose
-from points_matching_tpu.geometry.se3 import se3_exp, so3_exp
-from points_matching_tpu.pipelines.loop_closure import (
+from points_matching.core.types import CameraIntrinsics, Pose
+from points_matching.geometry.se3 import se3_exp, so3_exp
+from points_matching.pipelines.loop_closure import (
     close_loops,
     detect_loop_candidates,
     verify_loop,

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import MatcherConfig
-from points_matching_tpu.core.types import Descriptors
-from points_matching_tpu.ops.matching import (
+from points_matching.core.config import MatcherConfig
+from points_matching.core.types import Descriptors
+from points_matching.ops.matching import (
     distance_matrix,
     hamming_distance_matrix,
     knn_match,
@@ -157,9 +157,9 @@ def test_match_descriptors_uncompacted_agrees():
     matches as the compacted form."""
     import jax
 
-    from points_matching_tpu.core.config import MatcherConfig
-    from points_matching_tpu.core.types import Descriptors
-    from points_matching_tpu.ops.matching import match_descriptors
+    from points_matching.core.config import MatcherConfig
+    from points_matching.core.types import Descriptors
+    from points_matching.ops.matching import match_descriptors
 
     k1, k2 = jax.random.split(jax.random.PRNGKey(4))
     q = jax.random.normal(k1, (200, 32))

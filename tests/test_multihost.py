@@ -3,7 +3,7 @@
 Launches TWO real OS processes that form a ``jax.distributed`` cluster on
 faked CPU devices, covering ``initialize_distributed``,
 ``host_local_to_global``, and one cross-process ``psum`` — the pieces a
-TPU-pod run needs at startup, validated without a pod.
+multi-host run needs at startup, validated without a cluster.
 """
 import os
 import socket

@@ -5,18 +5,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.ba.lm import bundle_adjust, make_ba_state, ba_cost
-from points_matching_tpu.core.config import BAConfig
-from points_matching_tpu.core.types import CameraIntrinsics
-from points_matching_tpu.data.synthetic import make_ba_problem
-from points_matching_tpu.parallel import (
+from points_matching.ba.lm import bundle_adjust, make_ba_state, ba_cost
+from points_matching.core.config import BAConfig
+from points_matching.core.types import CameraIntrinsics
+from points_matching.data.synthetic import make_ba_problem
+from points_matching.parallel import (
     Comm,
     all_pairs_scores,
     distributed_bundle_adjust,
     make_mesh,
     set_fault_hook,
 )
-from points_matching_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from points_matching.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 
 def test_devices_available():

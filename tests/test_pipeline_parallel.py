@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.parallel.mesh import make_mesh
-from points_matching_tpu.parallel.pipeline import STAGE_AXIS, pipeline_stages
+from points_matching.parallel.mesh import make_mesh
+from points_matching.parallel.pipeline import STAGE_AXIS, pipeline_stages
 
 
 def _wire(m, key=0):
@@ -107,7 +107,7 @@ def _pair_batch(m=3, h=64, w=96, seed=11):
 
 
 def _staged_config():
-    from points_matching_tpu.core.config import (
+    from points_matching.core.config import (
         DetectorConfig, MatcherConfig, RansacConfig, TwoViewConfig)
     return TwoViewConfig(
         detector=DetectorConfig(kind="hessian", threshold=10.0,
@@ -120,7 +120,7 @@ def _staged_config():
 
 
 def test_real_two_view_stages_parity():
-    from points_matching_tpu.pipelines.staged_two_view import staged_two_view
+    from points_matching.pipelines.staged_two_view import staged_two_view
 
     cfg = _staged_config()
     img1, img2, keys = _pair_batch()
@@ -153,7 +153,7 @@ def test_real_two_view_stages_parity():
 
     # and vs the monolithic pipeline: same correspondences, same inlier
     # count (integer — immune to fp noise), compatible F per pair
-    from points_matching_tpu.pipelines.two_view import two_view_pipeline
+    from points_matching.pipelines.two_view import two_view_pipeline
     for i in range(img1.shape[0]):
         res = jax.jit(
             lambda a, b, k: two_view_pipeline(a, b, k, cfg)
@@ -168,7 +168,7 @@ def test_real_two_view_stages_parity():
         # the shifted pair is homography-related, so F itself is non-unique
         # (any [e]ₓH fits) — check the staged F explains the monolithic
         # pipeline's correspondences instead of comparing matrices
-        from points_matching_tpu.geometry import sampson_distance
+        from points_matching.geometry import sampson_distance
         d = np.asarray(sampson_distance(got["F"][i], res.p1, res.p2))
         m = np.asarray(res.matches.mask)
         assert float(np.median(d[m])) < cfg.ransac.inlier_threshold ** 2
@@ -184,9 +184,9 @@ def test_binary_descriptor_wire_staged_parity():
     except the RANSAC refit's fp tail)."""
     import dataclasses
 
-    from points_matching_tpu.core.config import (
+    from points_matching.core.config import (
         DescriptorConfig, DetectorConfig, MatcherConfig)
-    from points_matching_tpu.pipelines.staged_two_view import staged_two_view
+    from points_matching.pipelines.staged_two_view import staged_two_view
 
     cfg = _staged_config()
     cfg = dataclasses.replace(

@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from points_matching_tpu.core.config import RansacConfig
-from points_matching_tpu.data.synthetic import make_two_view_scene
-from points_matching_tpu.geometry import ransac_fundamental, sampson_distance
+from points_matching.core.config import RansacConfig
+from points_matching.data.synthetic import make_two_view_scene
+from points_matching.geometry import ransac_fundamental, sampson_distance
 
 
 def test_ransac_clean_scene():
@@ -98,7 +98,7 @@ def test_sample_index_sets_properties():
     """Stratified inverse-CDF sampler: no duplicates within a set, only
     valid indices, ~uniform marginal inclusion, and logits bias the draw
     (the contract geometry/pnp.py and ransac_fundamental rely on)."""
-    from points_matching_tpu.geometry.ransac import sample_index_sets
+    from points_matching.geometry.ransac import sample_index_sets
 
     mask = jnp.arange(100) < 80
     idx = np.asarray(sample_index_sets(jax.random.PRNGKey(0), mask, 512, 8))

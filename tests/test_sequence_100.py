@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import (
+from points_matching.core.config import (
     DescriptorConfig,
     DetectorConfig,
     MatcherConfig,
@@ -22,12 +22,12 @@ from points_matching_tpu.core.config import (
     SfMConfig,
     TwoViewConfig,
 )
-from points_matching_tpu.core.types import CameraIntrinsics
-from points_matching_tpu.data.render import render_sequence
-from points_matching_tpu.ops.descriptors import extract_descriptors
-from points_matching_tpu.ops.detect import detect_keypoints
-from points_matching_tpu.pipelines.sfm import camera_centers, run_incremental_sfm
-from points_matching_tpu.utils.evaluation import absolute_trajectory_error
+from points_matching.core.types import CameraIntrinsics
+from points_matching.data.render import render_sequence
+from points_matching.ops.descriptors import extract_descriptors
+from points_matching.ops.detect import detect_keypoints
+from points_matching.pipelines.sfm import camera_centers, run_incremental_sfm
+from points_matching.utils.evaluation import absolute_trajectory_error
 
 pytestmark = pytest.mark.slow
 
@@ -86,7 +86,7 @@ def test_100_frame_sfm_ate(rendered_100):
 
 
 def test_100_frame_loop_closure(rendered_100):
-    from points_matching_tpu.pipelines.loop_closure import close_loops
+    from points_matching.pipelines.loop_closure import close_loops
 
     frames, K, cfg, gt_pos = rendered_100
     res = run_incremental_sfm(frames, K, cfg, seed=0, ba_every=4,

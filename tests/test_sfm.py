@@ -6,17 +6,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from points_matching_tpu.core.config import (
+from points_matching.core.config import (
     MatcherConfig,
     RansacConfig,
     SfMConfig,
     TwoViewConfig,
 )
-from points_matching_tpu.core.types import CameraIntrinsics, Pose
-from points_matching_tpu.geometry.pnp import pnp_dlt, ransac_pnp
-from points_matching_tpu.geometry.se3 import so3_exp
-from points_matching_tpu.pipelines.sfm import camera_centers, run_incremental_sfm
-from points_matching_tpu.utils.evaluation import absolute_trajectory_error
+from points_matching.core.types import CameraIntrinsics, Pose
+from points_matching.geometry.pnp import pnp_dlt, ransac_pnp
+from points_matching.geometry.se3 import so3_exp
+from points_matching.pipelines.sfm import camera_centers, run_incremental_sfm
+from points_matching.utils.evaluation import absolute_trajectory_error
 
 
 def _make_sequence(num_frames=10, num_landmarks=300, n_feat=256, seed=0,

@@ -4,16 +4,17 @@ dense/sparse parity, and a scale smoke test the dense grid cannot hold)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from points_matching_tpu.ba.lm import bundle_adjust, make_ba_state
-from points_matching_tpu.ba.residuals import residuals_and_jacobians
-from points_matching_tpu.ba.schur import (
+from points_matching.ba.lm import bundle_adjust, make_ba_state
+from points_matching.ba.residuals import residuals_and_jacobians
+from points_matching.ba.schur import (
     build_normal_equations,
     schur_matvec,
     _damp,
     _inv3,
 )
-from points_matching_tpu.ba.sparse import (
+from points_matching.ba.sparse import (
     build_sparse_normal_equations,
     bundle_adjust_sparse,
     make_sparse_ba_state,
@@ -22,10 +23,10 @@ from points_matching_tpu.ba.sparse import (
     sparse_schur_matvec,
     solve_sparse_schur_pcg,
 )
-from points_matching_tpu.core.config import BAConfig
-from points_matching_tpu.core.types import CameraIntrinsics, Pose
-from points_matching_tpu.data.synthetic import make_ba_problem
-from points_matching_tpu.geometry.se3 import so3_exp
+from points_matching.core.config import BAConfig
+from points_matching.core.types import CameraIntrinsics, Pose
+from points_matching.data.synthetic import make_ba_problem
+from points_matching.geometry.se3 import so3_exp
 
 
 def _problem_pair(seed=0, cameras=5, landmarks=48, drop=0.2, noise=0.5):
@@ -152,8 +153,8 @@ def test_distributed_sparse_ba_matches_single_device():
     """Observation-sharded LM on the faked 8-device mesh must reproduce the
     single-device result bit-for-policy (same math, psum-completed sums;
     VERDICT r2 item 4)."""
-    from points_matching_tpu.parallel.mesh import MODEL_AXIS, make_mesh
-    from points_matching_tpu.parallel.sharded_ba import (
+    from points_matching.parallel.mesh import MODEL_AXIS, make_mesh
+    from points_matching.parallel.sharded_ba import (
         distributed_bundle_adjust_sparse,
     )
 
@@ -185,8 +186,8 @@ def test_distributed_sparse_ba_matches_single_device():
 def test_distributed_sparse_ba_pads_ragged_observation_axis():
     """O not divisible by the mesh axis: padding with masked rows must not
     change the optimum."""
-    from points_matching_tpu.parallel.mesh import MODEL_AXIS, make_mesh
-    from points_matching_tpu.parallel.sharded_ba import (
+    from points_matching.parallel.mesh import MODEL_AXIS, make_mesh
+    from points_matching.parallel.sharded_ba import (
         distributed_bundle_adjust_sparse,
     )
 
@@ -240,14 +241,14 @@ def test_sparse_ba_at_scale_dense_grid_cannot_hold():
 
 
 def test_sorted_layout_matches_scatter():
-    """obs_layout='sorted' (TPU path: sort-once + cumsum-diff landmark
+    """obs_layout='sorted' (sort-once + cumsum-diff landmark
     sums + one-hot-GEMM camera sums) must reproduce the scatter
     segment_sum path: same per-iteration algebra to f32 tolerance, same
     final cost trajectory, and the returned state must keep the caller's
     observation ordering."""
     import dataclasses
 
-    from points_matching_tpu.core.config import BAConfig
+    from points_matching.core.config import BAConfig
 
     _, sparse, K = _problem_pair(seed=7, cameras=6, landmarks=64, drop=0.3)
     # perturb so BA has real work
@@ -281,13 +282,13 @@ def test_sorted_layout_matches_scatter():
 
 
 def test_distributed_sparse_ba_sorted_layout():
-    """obs_layout='sorted' under shard_map (the real-TPU configuration —
-    per-shard sort + scatter-free reductions + psum) must match the
+    """obs_layout='sorted' under shard_map (per-shard sort + scatter-free
+    reductions + psum) must match the
     scatter distributed path on the faked 8-device mesh."""
     import dataclasses
 
-    from points_matching_tpu.parallel.mesh import MODEL_AXIS, make_mesh
-    from points_matching_tpu.parallel.sharded_ba import (
+    from points_matching.parallel.mesh import MODEL_AXIS, make_mesh
+    from points_matching.parallel.sharded_ba import (
         distributed_bundle_adjust_sparse,
     )
 
@@ -342,30 +343,24 @@ def test_lm_fixed_freezes_landmarks_exactly():
     assert float(stats_all.final_cost) <= float(stats.final_cost) * 1.05
 
 
-def test_sorted_layout_auto_gates_on_problem_size(monkeypatch):
-    """ADVICE r4: 'auto' must fall back to scatter segment_sum when the
-    [C, O] one-hot would blow memory or the cumsum-diff error would grow
-    (large C*O or O) — sorted only below the thresholds, and an explicit
-    'sorted' request is always honored."""
-    from points_matching_tpu.ba import sparse as sp
+def test_sorted_layout_auto_gates_on_problem_size():
+    """The default takes scatter segment_sum at every problem size and on
+    every platform; only an explicit 'sorted' request chooses the sorted
+    layout, and an unknown layout name raises."""
+    from points_matching.ba import sparse as sp
 
-    cfg_auto = BAConfig(obs_layout="auto")
-    monkeypatch.setattr(
-        sp.jax, "devices", lambda: [type("D", (), {"platform": "tpu"})()]
-    )
-    assert sp._use_sorted_layout(cfg_auto, C=128, O=32768)
-    assert not sp._use_sorted_layout(cfg_auto, C=4096, O=4 * 1024 * 1024)
-    assert not sp._use_sorted_layout(cfg_auto, C=8, O=2 * 1024 * 1024)
-    assert sp._use_sorted_layout(
-        BAConfig(obs_layout="sorted"), C=4096, O=4 * 1024 * 1024
-    )
+    assert not sp._use_sorted_layout(BAConfig())
+    assert not sp._use_sorted_layout(BAConfig(obs_layout="scatter"))
+    assert sp._use_sorted_layout(BAConfig(obs_layout="sorted"))
+    with pytest.raises(ValueError):
+        sp._use_sorted_layout(BAConfig(obs_layout="auto"))
 
 
 def test_analytic_jacobians_match_jacfwd():
     """The closed-form residual Jacobians (r5 — replacing the vmapped
     jacfwd chain) must match the forward-mode reference to rounding,
     including the z-clamp gate for points at/behind the camera plane."""
-    from points_matching_tpu.ba.sparse import (
+    from points_matching.ba.sparse import (
         _sparse_residuals_and_jacobians_jacfwd,
         sparse_residuals,
         sparse_residuals_and_jacobians,

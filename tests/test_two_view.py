@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from points_matching_tpu.core.config import (
+from points_matching.core.config import (
     DetectorConfig,
     MatcherConfig,
     TwoViewConfig,
     orb_default_config,
     surf_parity_config,
 )
-from points_matching_tpu.pipelines.two_view import run_two_view_demo, two_view_pipeline
+from points_matching.pipelines.two_view import run_two_view_demo, two_view_pipeline
 
 REF_DIR = "/root/reference/Points Matching"
 IMG1 = os.path.join(REF_DIR, "img01.JPG")
@@ -76,7 +76,7 @@ def test_ransac_pipeline_inliers(tmp_path):
     assert n_matches >= 20
     assert n_inl >= 12
     # RANSAC inliers must have small Sampson distance under the model
-    from points_matching_tpu.geometry import sampson_distance
+    from points_matching.geometry import sampson_distance
 
     d = sampson_distance(
         jnp.asarray(res.estimate.F), jnp.asarray(res.p1), jnp.asarray(res.p2)
@@ -100,7 +100,7 @@ def test_eight_point_agrees_with_opencv_on_same_matches():
     if len(p1) < 9:
         pytest.skip("too few inliers")
     F_cv, _ = cv2.findFundamentalMat(p1, p2, cv2.FM_8POINT)
-    from points_matching_tpu.geometry import eight_point
+    from points_matching.geometry import eight_point
 
     F = np.asarray(eight_point(jnp.asarray(p1, jnp.float32), jnp.asarray(p2, jnp.float32)))
     F_cv = F_cv / np.linalg.norm(F_cv)
@@ -123,7 +123,7 @@ def test_pipeline_jit_static_shapes():
 def test_orb_config_pipeline():
     """BASELINE config 0: ORB detect + hamming ratio match + RANSAC."""
     rng = np.random.RandomState(2)
-    from points_matching_tpu.ops.detect import gaussian_blur
+    from points_matching.ops.detect import gaussian_blur
 
     base = gaussian_blur(jnp.asarray(rng.rand(160, 200).astype(np.float32)) * 255.0, 1.2)
     im2 = jnp.roll(base, (4, 9), axis=(0, 1))
